@@ -5,7 +5,7 @@ Runs the HLA-scale read-assignment stage three ways on one thread:
   inline    engine.assign_batch (the production native path)
   deferred  engine.assign_batch_deferred with the NATIVE stats oracle as
             the scorer, timed inside the stats_fn — so
-            host_half = wall - scoring, independent of any device/relay
+            host_half = wall - scoring, independent of any device
   deferred+profile  same, with T1K_ENGINE_PROFILE phase counters
 
 and byte-compares the assignment records.  This isolates the question
@@ -108,7 +108,7 @@ def main():
     }))
 
     # --- production config: engine-side accumulation + chunked
-    # deferral (what the pipeline runs with --backend tpu), swept over
+    # deferral (what the pipeline runs with --backend device), swept over
     # chunk sizes: small chunks keep the per-chunk SoA arenas
     # cache-resident for the finish pass
     eng3 = fresh_engine()

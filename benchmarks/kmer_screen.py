@@ -1,5 +1,5 @@
 """Device k-mer classification throughput (north-star hot loop 1:
-candidate screening).  Reads/s/chip for the TPU prefilter
+candidate screening).  Reads/s/device for the device prefilter
 (ops/kmer.py) vs the native exact screen, single thread, on the
 cyp2d6 RNA panel with 95% off-target background (the extractor's
 real regime).
@@ -117,7 +117,7 @@ def main():
     dev = bench_device()
     nat = bench_native()
     print(json.dumps({
-        "metric": "kmer_screen_reads_per_s_per_chip",
+        "metric": "kmer_screen_reads_per_s_per_device",
         "value": round(dev),
         "unit": "reads/s",
         "vs_native_single_thread": round(dev / nat, 2),

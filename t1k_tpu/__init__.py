@@ -1,11 +1,11 @@
-"""t1k_tpu — a TPU-native KIR/HLA genotyping framework.
+"""t1k_tpu — a GPU-accelerated KIR/HLA genotyping framework in JAX.
 
 A from-scratch reimplementation of the capabilities of mourisl/T1K
-(Song et al., Genome Res 2023) designed for TPU hardware:
+(Song et al., Genome Res 2023) with its bulk compute on an accelerator:
 
   * candidate reads are k-mer classified against the allele database
     (IPD-IMGT/HLA, IPD-KIR, or custom references),
-  * scored with a batched banded affine-gap aligner (Pallas TPU kernel,
+  * scored with a batched banded affine-gap aligner (a jitted device DP,
     with a native C++ host engine for CPU-only runs and bit-exact parity),
   * allele abundances are inferred by SQUAREM-accelerated EM over the
     read-group x equivalence-class matrix (jitted, psum-ready for
@@ -16,7 +16,7 @@ A from-scratch reimplementation of the capabilities of mourisl/T1K
 Layering (host -> device):
   io/        FASTQ/FASTA/BAM ingestion, reference packing, output writers
   native/    C++ host engine: seed/chain/banded-DP/extend + EM inner loop
-  ops/       device ops: k-mer screen, Pallas banded aligner, jitted EM
+  ops/       device ops: k-mer screen, banded aligner, jitted EM
   core/      pipeline stages: extractor, seqset, fragment, genotyper,
              variant caller, barcodes
   parallel/  mesh construction and multi-chip sharded EM

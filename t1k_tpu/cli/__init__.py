@@ -1,6 +1,11 @@
 """CLI entry points (extract / bamextract / genotype / analyze / run)."""
 
+import os
 import re
+import sys
+
+# "tpu" is the former name of "device", kept as an alias
+BACKEND_CHOICES = ["auto", "native", "device", "tpu"]
 
 _NEG_NUM = re.compile(r"^-\d+(\.\d+)?([eE][+-]?\d+)?$")
 
@@ -40,3 +45,29 @@ def fold_negative_values(argv):
             out.append(a)
             i += 1
     return out
+
+
+def check_forced_device(backend: str, em_backend: str = "auto") -> bool:
+    """False (after printing why) when --backend device, --emBackend jax
+    or T1K_BACKEND=device force a device route on a host where JAX finds
+    no GPU; an explicit JAX_PLATFORMS=cpu pin is allowed (the same XLA
+    programs then run on the CPU)."""
+    from ..core.pipeline import (DeviceUnavailableError, canonical_backend,
+                                 require_device)
+
+    forced = []
+    if canonical_backend(backend) == "device":
+        forced.append(f"--backend {backend}")
+    if em_backend == "jax":
+        forced.append("--emBackend jax")
+    if canonical_backend(os.environ.get("T1K_BACKEND", "")) == "device":
+        forced.append("T1K_BACKEND=device")
+    if not forced:
+        return True
+    try:
+        require_device(" and ".join(forced))
+    except DeviceUnavailableError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return False
+    return True
+

@@ -11,6 +11,8 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
+from . import BACKEND_CHOICES, check_forced_device
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -31,10 +33,9 @@ def build_parser() -> argparse.ArgumentParser:
                     default=[])
     ap.add_argument("--relaxIntronAlign", action="store_true")
     ap.add_argument("--varMaxGroup", type=int, default=8)
-    ap.add_argument("--backend", default="auto",
-                    choices=["auto", "native", "tpu"],
-                    help="alignment backend; auto = tpu when an "
-                         "accelerator is present (byte-identical)")
+    ap.add_argument("--backend", default="auto", choices=BACKEND_CHOICES,
+                    help="alignment backend; auto = device when a GPU is "
+                         "present (byte-identical)")
     return ap
 
 
@@ -57,6 +58,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(
         fold_negative_values(argv) if argv is not None
         else fold_negative_values(__import__('sys').argv[1:]))
+    if not check_forced_device(args.backend):
+        return 2
     opts = AnalyzerOptions(
         ref_seq_similarity=args.similarity,
         relax_intron_align=args.relaxIntronAlign,

@@ -10,6 +10,8 @@ import argparse
 import sys
 from typing import List, Optional
 
+from . import BACKEND_CHOICES, check_forced_device
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -45,10 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--read1End", type=int, default=None)
     ap.add_argument("--read2Start", type=int, default=None)
     ap.add_argument("--read2End", type=int, default=None)
-    ap.add_argument("--backend", default="auto",
-                    choices=["auto", "native", "tpu"],
-                    help="screen backend; auto/tpu = device k-mer "
-                         "prefilter + exact native re-screen "
+    ap.add_argument("--backend", default="auto", choices=BACKEND_CHOICES,
+                    help="screen backend; device = device screen + exact "
+                         "native re-screen of undecided reads, auto = "
+                         "device past the size gate when a GPU is present "
                          "(byte-identical output either way)")
     return ap
 
@@ -80,6 +82,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     args = build_parser().parse_args(_merge_negative_ints(list(argv)))
+    if not check_forced_device(args.backend):
+        return 2
     opts = ExtractorOptions(ref_seq_similarity=args.similarity,
                             threads=args.threads, backend=args.backend)
     if args.barcode:

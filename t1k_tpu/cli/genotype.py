@@ -8,6 +8,8 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
+from . import BACKEND_CHOICES, check_forced_device
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -39,22 +41,18 @@ def build_parser() -> argparse.ArgumentParser:
                     default=[])
     ap.add_argument("--relaxIntronAlign", action="store_true")
     ap.add_argument("--outputReadAssignment", action="store_true")
-    ap.add_argument("--backend", default="auto",
-                    choices=["auto", "native", "tpu"],
-                    help="alignment backend; auto = tpu when an "
-                         "accelerator is present, else native "
-                         "(byte-identical either way)")
+    ap.add_argument("--backend", default="auto", choices=BACKEND_CHOICES,
+                    help="alignment backend; auto = device when a GPU is "
+                         "present, else native (byte-identical either way)")
     ap.add_argument("--deviceCandidates", dest="deviceCandidates",
                     action="store_true",
                     help="phase-A-lite: device-pruned candidate buckets for "
-                         "the assignment stage (byte-identical; wins on "
-                         "locally attached TPUs)")
+                         "the assignment stage (byte-identical outputs)")
     ap.add_argument("--emBackend", dest="emBackend", default="auto",
                     choices=["auto", "native", "jax"],
                     help="EM implementation: native f64 (byte-exact), "
-                         "jitted device EM (multi-chip scale path), or "
-                         "auto = device iff a TPU is present and the "
-                         "problem is past the size where it wins")
+                         "jitted device EM, or auto = device iff a GPU is "
+                         "present and the problem is past the size gate")
     ap.add_argument("--resumeEmState", dest="resumeEmState", default=None,
                     help="resume from a <prefix>_em_state.npz snapshot of "
                          "a preempted run: skip EM quantification and "
@@ -69,6 +67,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(
         fold_negative_values(argv) if argv is not None
         else fold_negative_values(__import__('sys').argv[1:]))
+    if not check_forced_device(args.backend, args.emBackend):
+        return 2
+    from ..utils.observability import reset_metrics
+    reset_metrics()
     opts = GenotypeOptions(
         ref_seq_similarity=args.similarity,
         relax_intron_align=args.relaxIntronAlign,

@@ -22,12 +22,13 @@ from typing import List, Optional
 
 from ..core.extractor import ExtractorOptions, run_extractor
 from ..core.pipeline import GenotypeOptions, log, run_genotyper
+from . import BACKEND_CHOICES, check_forced_device
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="t1k-tpu",
-        description="TPU-native KIR/HLA genotyper",
+        description="KIR/HLA genotyper with GPU-accelerated stages",
     )
     # repeated occurrences extend like the reference binaries' getopt
     # loops (each -1/-u/--barcode appends another file)
@@ -73,19 +74,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--outputReadAssignment", action="store_true")
     ap.add_argument("--stage", type=int, default=0)
     ap.add_argument("--post-varMaxGroup", dest="varMaxGroup", type=int, default=8)
-    ap.add_argument("--backend", default="auto",
-                    choices=["auto", "native", "tpu"],
-                    help="alignment compute backend; auto = tpu when an "
-                         "accelerator is present (byte-identical)")
+    ap.add_argument("--backend", default="auto", choices=BACKEND_CHOICES,
+                    help="compute backend of the screen and the alignment "
+                         "DP; auto = device when a GPU is present "
+                         "(byte-identical)")
     ap.add_argument("--deviceCandidates", dest="deviceCandidates",
                     action="store_true",
                     help="phase-A-lite: device-pruned candidate buckets for "
-                         "the assignment stage (byte-identical; wins on "
-                         "locally attached TPUs)")
+                         "the assignment stage (byte-identical outputs)")
     ap.add_argument("--emBackend", dest="emBackend", default="auto",
                     choices=["auto", "native", "jax"],
                     help="EM implementation: native f64 (byte-exact), "
-                         "device EM, or auto = device iff a TPU is "
+                         "device EM, or auto = device iff a GPU is "
                          "present and the problem size favors it")
     return ap
 
@@ -116,6 +116,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     # argparse as the -1/-2 options; fold them in
     from . import fold_negative_values
     args = build_parser().parse_args(fold_negative_values(argv))
+    if not check_forced_device(args.backend, args.emBackend):
+        return 2
+    from ..utils.observability import reset_metrics
+    reset_metrics()
 
     geno_sim, extract_sim, relax = resolve_preset(
         args.preset, args.similarity, args.relaxIntronAlign)
@@ -158,16 +162,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     nproc = int(os.environ.get("T1K_NUM_PROCESSES", "1"))
     pid = int(os.environ.get("T1K_PROCESS_ID", "0"))
     if nproc > 1 and pid > 0:
-        # Device policy for multi-process runs sharing one chip: only
-        # process 0 probes and uses the accelerator (extraction and the
-        # merged global stages run there anyway); workers pin the
-        # presence verdict to absent so they never contend for the TPU
-        # client — a second process's backend init can wedge the chip
-        # for every process (docs/tpu_pipeline.md "wedged orphan").
-        # An explicit T1K_BACKEND or T1K_TPU_PRESENT from the launcher
-        # overrides (e.g. one chip per host on a real pod).
-        if not os.environ.get("T1K_BACKEND"):
-            os.environ.setdefault("T1K_TPU_PRESENT", "0")
+        # Device policy for multi-process runs sharing one card: only
+        # process 0 uses the accelerator (extraction and the merged
+        # global stages run there anyway); under "auto", workers pin
+        # the presence verdict to absent so they never open the card (a
+        # JAX process reserves most of its memory).  An explicit
+        # --backend, T1K_BACKEND or T1K_DEVICE_PRESENT from the launcher
+        # overrides (e.g. one card per host).
+        if args.backend == "auto" and not os.environ.get("T1K_BACKEND"):
+            os.environ.setdefault("T1K_DEVICE_PRESENT", "0")
     if nproc > 1 and (args.barcode or args.outputReadAssignment
                       or args.alleleWhitelist):
         print("Distributed mode covers the standard paired/single flow; "

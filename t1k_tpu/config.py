@@ -19,7 +19,7 @@ class PipelineConfig:
     # shared
     reference: str = ""
     threads: int = 1
-    backend: str = "native"              # native | tpu
+    backend: str = "native"              # auto | native | device
     # extraction
     extractor_similarity: float = 0.8
     barcode_file: Optional[str] = None

@@ -167,7 +167,7 @@ def run_analyzer(
         from .pipeline import resolve_backend
         uniq, group_of, rec, off = assign_unique_reads(
             engine, all_seqs, zero_weights=True,
-            dp_backend=resolve_backend(opts.backend))
+            dp_backend=resolve_backend(opts.backend), counters=st)
         overlap_lists = overlap_lists_from_records(rec, off)
         st["unique_read_count"] = len(uniq)
     log("Finish read end assignments.")

@@ -467,7 +467,7 @@ def extract_from_bam(bam_path: str, coord_path: str, ref_fasta: str,
                      mate_id_len: int = -1,
                      bc_field: str = "", umi_field: str = "") -> dict:
     from ..constants import EXTRACTOR_KMER_LENGTH, encode_seq
-    from ..core.extractor import lazy_device_screen, screen_flags
+    from ..core.extractor import LazyDeviceScreen, screen_flags
     from ..io.reads import read_seq_file
     from ..io.refset import RefSet
     from ..native import NativeEngine
@@ -612,7 +612,7 @@ def extract_from_bam(bam_path: str, coord_path: str, ref_fasta: str,
     engine = NativeEngine(packed, kmer_length, hit_len_required=hit_len)
 
     # Device screen, same size-gated routing as the FASTQ extractor
-    # (core/extractor.py lazy_device_screen): the exact phase-A program
+    # (core/extractor.py LazyDeviceScreen): the exact phase-A program
     # screens flushed batches on the chip once the run has streamed
     # enough reads to amortize the per-process device setup; undecided
     # reads re-screen natively, so output stays byte-identical (which
@@ -625,7 +625,7 @@ def extract_from_bam(bam_path: str, coord_path: str, ref_fasta: str,
         # similarity (reference BamExtractor.cpp uses SeqSet defaults)
         return DeviceScreen.build(packed, kmer_length, hit_len, 0.8)
 
-    get_screen = lazy_device_screen(backend, _build)
+    get_screen = LazyDeviceScreen(backend, _build)
 
     if paired:
         fp1 = open(f"{output_prefix}_1.fq", "w")

@@ -393,6 +393,9 @@ class NativeEngine:
         total = 0
         slot = 0
         for lo, hi in bounds:
+            # the begin pass indexes per-read state (device candidates)
+            # by the chunk's global base; finish resets it to its own
+            _lib.t1k_defer_set_base(self._handle, lo)
             _lib.t1k_defer2_begin(self._handle, slot, read_codes,
                                   read_starts[lo:hi], read_lens[lo:hi],
                                   weights[lo:hi], hi - lo, total_len)

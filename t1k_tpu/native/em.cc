@@ -9,7 +9,7 @@
 // low-abundance major-allele mask applied every 10 rounds.  Accumulation
 // order matches the reference exactly so results are bit-identical.
 //
-// The TPU twin of this loop lives in t1k_tpu/ops/em.py (jitted dense
+// The device twin of this loop lives in t1k_tpu/ops/em.py (jitted dense
 // linear algebra, psum across hosts); this version is the f64 oracle.
 
 #include <cstdint>

@@ -7,9 +7,10 @@
 //
 // This is a from-scratch implementation of the behavioral contracts
 // documented in SURVEY.md sections 2-3 (reference: mourisl/T1K; file:line
-// citations in comments refer to that codebase).  The companion TPU path
-// (t1k_tpu/ops) executes the same DP contract as a batched Pallas kernel;
-// this engine is the CPU fallback and the bit-exactness oracle.
+// citations in comments refer to that codebase).  The companion device
+// path (t1k_tpu/ops/align.py) executes the same DP contract as a batched
+// jitted program; this engine is the CPU fallback and the bit-exactness
+// oracle.
 //
 // All sequence data uses the framework's integer encoding:
 //   A=0 C=1 G=2 T=3, N/other=4.
@@ -1845,7 +1846,7 @@ static void AssignRead(Engine& eng, const int8_t* read, int len, int weight,
 // ------------------------------------------------------- deferred DP mode
 // The assignment pipeline with the small banded alignments (seed-gap
 // fill and overhang extension) batched out to an external scorer — on
-// TPU, the band-packed Pallas stats kernel (ops/align_pallas_band.py).
+// the device, the band-window stats DP (ops/align.py).
 //
 // v2: ONE device round trip per chunk.  The overhang-extension windows
 // depend only on the chain geometry (ExtendGeometry is pure), not on
@@ -1868,7 +1869,7 @@ static void AssignRead(Engine& eng, const int8_t* read, int len, int weight,
 //
 // Items whose shape can't ride the W=32 band window (|Δlen| > 10) or
 // exceed the device length cap are aligned inline — the external counts
-// are exact (the kernel is bit-exact vs BandedGlobalAlignStats), so the
+// are exact (the device DP is bit-exact vs BandedGlobalAlignStats), so the
 // end-to-end output is byte-identical to the inline path.
 //
 // Two chunk slots exist so the driver can software-pipeline: dispatch
@@ -1876,7 +1877,7 @@ static void AssignRead(Engine& eng, const int8_t* read, int len, int weight,
 // host while the device scores, then finish chunk i.
 
 constexpr int kDeferMaxDiff = 10;   // window-fit guarantee: 5+10+|ML|<=30<32
-// Device item length cap: the Pallas stats kernel packs the three
+// Device item length cap: the device stats DP packs the three
 // traceback counters into 9-bit fields of one int32, and no field can
 // exceed tLen+pLen+2 ops — 254+254+2 = 510 < 512 is the true boundary
 // (tests/test_defer_caps.py pins both sides).  254 keeps 250-300bp

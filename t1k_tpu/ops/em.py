@@ -27,7 +27,6 @@ _jaxcache.enable()
 import jax
 import jax.numpy as jnp
 
-from ..utils.aot import aot_jit
 import numpy as np
 
 
@@ -35,32 +34,39 @@ def _segment_sum(data, seg, n):
     return jax.ops.segment_sum(data, seg, num_segments=n)
 
 
-@functools.partial(aot_jit, static_argnames=("rg_cnt", "ec_cnt", "dtype"))
+@functools.partial(jax.jit, static_argnames=("rg_cnt", "ec_cnt", "dtype"))
 def _build_incidence(seg_rg, seg_ec, rg_cnt: int, ec_cnt: int,
                      dtype=jnp.int8):
     """0/1 [rg_cnt, ec_cnt] incidence built on device: a one-time
     scatter-add over the nnz index lists, so the full matrix never
     crosses the host link (it can be GBs at the dense cap).
 
-    Stored int8 by default: the EM matvecs are HBM-bound streaming of A,
-    so byte-wide storage is a direct 4x bandwidth win over f32 (measured
-    36.7 -> 129.7 SQUAREM rounds/s at 4096 ECs x 200k read groups on a
-    v5e chip); values are exact small integers, so the f32-accumulating
-    mixed dot below loses nothing."""
+    Stored int8 by default: the EM matvecs stream A from device memory,
+    so byte-wide storage moves a quarter of the bytes of f32; values are
+    exact small integers, so the f32-accumulating mixed dot below loses
+    nothing."""
     return jnp.zeros((rg_cnt, ec_cnt), dtype).at[seg_rg, seg_ec].add(1)
+
+
+# Full float32 products: a float32 dot may otherwise run in TF32 on the
+# GPU, and these matvecs are bound by streaming A, so TF32 would buy
+# nothing but a different SQUAREM trajectory.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _mv(A, x, dtype):
     """[rg, ec] (any int/float dtype) @ [ec] -> [rg] accumulated in
-    `dtype` (mixed-precision dot: XLA converts A's lanes on the fly, so
-    int8 A streams at 1 byte/element)."""
+    `dtype` (mixed-precision dot: A is converted as it is read, so int8
+    A streams at 1 byte/element)."""
     return jax.lax.dot_general(A, x.astype(dtype), (((1,), (0,)), ((), ())),
+                               precision=_HIGHEST,
                                preferred_element_type=dtype)
 
 
 def _vm(w, A, dtype):
     """[rg] @ [rg, ec] -> [ec] accumulated in `dtype`."""
     return jax.lax.dot_general(w.astype(dtype), A, (((0,), (0,)), ((), ())),
+                               precision=_HIGHEST,
                                preferred_element_type=dtype)
 
 
@@ -83,25 +89,31 @@ DENSE_EM_MAX_ELEMS = DENSE_EM_MAX_BYTES
 
 def segment_bounds(seg_sorted: np.ndarray, n: int):
     """(starts, ends) of each segment id in a SORTED segment array —
-    host precompute for the scatter-free device segment sum."""
+    host precompute for the device sorted-segment sum."""
     ids = np.arange(n + 1)
     b = np.searchsorted(seg_sorted, ids).astype(np.int32)
     return b[:-1], b[1:]
 
 
 def sorted_segment_sum(vals, starts, ends):
-    """Segment sums of `vals` whose segment ids are sorted, via
-    prefix-sum differences: gathers and a log-depth cumsum only.  TPU
-    scatters serialize (jax.ops.segment_sum lowers to scatter-add), so
-    the EM hot loop must avoid them; cumsum is a parallel prefix with
-    O(log n · eps) rounding, comparable to a tree reduction."""
-    c = jnp.cumsum(vals)
-    c = jnp.concatenate([jnp.zeros((1,), vals.dtype), c])
-    return c[ends] - c[starts]
+    """Segment sums of `vals` laid out in sorted segment order: segment s
+    owns vals[starts[s]:ends[s]], and entries outside every segment (the
+    padding of a shard) are dropped.  Each sum accumulates only its own
+    entries, so its rounding error is relative to that segment alone (a
+    prefix-sum difference over the whole array loses the small segments'
+    digits in float32, enough to keep SQUAREM from ever reaching its
+    1e-5 convergence step).  Segment ids come from a search of `starts`,
+    which is loop-invariant inside the EM loops."""
+    n = starts.shape[0]
+    pos = jnp.arange(vals.shape[0], dtype=starts.dtype)
+    seg = jnp.searchsorted(starts, pos, side="right") - 1
+    inside = (seg >= 0) & (pos < ends[jnp.maximum(seg, 0)])
+    return jax.ops.segment_sum(vals, jnp.where(inside, seg, n),
+                               num_segments=n, indices_are_sorted=True)
 
 
 @functools.partial(
-    aot_jit,
+    jax.jit,
     static_argnames=("ec_cnt", "rg_cnt", "gene_cnt", "major_cnt",
                      "max_iterations", "mask_round"))
 def _em_loop(
@@ -115,14 +127,11 @@ def _em_loop(
     dtype = init_x.dtype
 
     def em_update(x):
-        # Scatter-free, permutation-free E/M steps.  The incidence list
-        # exists in two precomputed orders: read-group order (for the
-        # per-group normalizer) and EC order (for the count reduction).
-        # Both segment sums are prefix-sum differences over their
-        # sorted order, and the only large gather reads the [rg_cnt]
-        # psum table — gathers from big->big permutations and scatters
-        # both serialize on TPU (measured 12-16ms per 1.6M elements vs
-        # ~0.4ms for a table gather).
+        # Permutation-free E/M steps.  The incidence list exists in two
+        # precomputed orders: read-group order (for the per-group
+        # normalizer) and EC order (for the count reduction), so both
+        # segment sums run over sorted segments and the only large
+        # gather reads the [rg_cnt] psum table.
         psum = sorted_segment_sum(x[seg_ec], rg_starts, rg_ends)
         psum = jnp.where(psum == 0, 1, psum)
         contrib = cts_ecorder * x[sec_sorted] / psum[srg_ecorder]
@@ -207,7 +216,7 @@ def _squarem_while(em_update, mask_reset, init_x, min_squarem_alpha,
 
 
 @functools.partial(
-    aot_jit,
+    jax.jit,
     static_argnames=("ec_cnt", "gene_cnt", "major_cnt", "max_iterations",
                      "mask_round"))
 def _em_loop_dense(
@@ -219,9 +228,9 @@ def _em_loop_dense(
 ):
     """Dense-incidence EM: A is the 0/1 [rg_cnt, ec_cnt] int8 matrix.
     The E-step is two mixed-precision dense matvecs (bandwidth-bound
-    streaming of A at 1 byte/element, no gathers or scatters — both
-    serialize on TPU); used whenever A fits comfortably in HBM, which
-    covers every single-sample workload."""
+    streaming of A at 1 byte/element, no gathers or scatters); used
+    whenever A fits the device-memory budget, which covers every
+    single-sample workload."""
     dtype = init_x.dtype
 
     def em_update(x):
@@ -303,10 +312,9 @@ def em_quantify_jax(
 
     # Dense fast path: when the [rg_cnt, ec_cnt] int8 incidence matrix
     # fits in the device-memory budget (built on device, never
-    # transferred), the E-step is two mixed-precision dense matvecs —
-    # no gathers/scatters, which serialize on TPU.  Covers every
-    # realistic single-sample workload; the segment path handles
-    # beyond-HBM problems.
+    # transferred), the E-step is two mixed-precision dense matvecs.
+    # Covers every realistic single-sample workload; the segment path
+    # handles problems beyond device memory.
     elem_cap = min(DENSE_EM_MAX_ELEMS, DENSE_EM_MAX_BYTES)
     if rg_cnt * ec_cnt <= elem_cap:
         A = _build_incidence(jnp.asarray(seg_rg), jnp.asarray(seg_ec),
@@ -353,7 +361,7 @@ def em_quantify_jax(
 # collective is the all-reduce implied by the loop condition.
 
 @functools.partial(
-    aot_jit,
+    jax.jit,
     static_argnames=("ec_cnt", "gene_cnt", "major_cnt", "max_iterations",
                      "mask_round"))
 def _em_loop_dense_batched(
@@ -374,10 +382,11 @@ def _em_loop_dense_batched(
         # [C,R] @ [C,R,K], accumulating in the compute dtype while A
         # streams at 1 byte/element
         psum = jnp.einsum("crk,ck->cr", A, x.astype(dtype),
-                          preferred_element_type=dtype)
+                          precision=_HIGHEST, preferred_element_type=dtype)
         psum = jnp.where(psum == 0, 1, psum)
         count = x * jnp.einsum("cr,crk->ck", (cts_rg / psum).astype(dtype),
-                               A, preferred_element_type=dtype)
+                               A, precision=_HIGHEST,
+                               preferred_element_type=dtype)
         per_len = count / ec_len
         norm = per_len.sum(axis=1, keepdims=True)
         norm = jnp.where(norm == 0, 1, norm)

@@ -14,7 +14,7 @@ must have at least ceil(hitLenRequired / k) index-matching windows on one
 strand (SeqSet.hpp:1959), so flagging reads with fewer total matches
 cannot produce false negatives.  The native engine re-screens the
 surviving reads exactly, preserving byte-identical extractor output
-while the TPU discards the bulk of off-target input at memory bandwidth.
+while the device discards the bulk of off-target input.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ _jaxcache.enable()
 import jax
 import jax.numpy as jnp
 
-from ..utils.aot import aot_jit
 import numpy as np
 
 _EMPTY = np.uint32(0xFFFFFFFF)
@@ -52,9 +51,8 @@ class DeviceKmerTable:
         """Collect distinct valid k-mers of all reference sequences.
 
         For k <= 14 the key space 4^k is small enough to direct-address
-        a membership bitmap — the classify kernel then costs exactly ONE
-        table gather per window (gathers dominate on TPU), with exact
-        membership.  Larger k falls back to open addressing."""
+        a membership bitmap — the classify program then costs exactly
+        ONE table gather per window, with exact membership.  Larger k falls back to open addressing."""
         keys = set()
         for s in range(packed.n):
             start = int(packed.seq_starts[s])
@@ -107,7 +105,7 @@ def _rolling_codes(codes: jnp.ndarray, k: int):
     return acc, ~invalid
 
 
-@functools.partial(aot_jit, static_argnames=("k", "size", "max_probe"))
+@functools.partial(jax.jit, static_argnames=("k", "size", "max_probe"))
 def _classify(codes, lens, table, k: int, size: int, max_probe: int = 6):
     """Count index-matching windows per read on both strands.
 
@@ -141,7 +139,7 @@ def _classify(codes, lens, table, k: int, size: int, max_probe: int = 6):
     return _strand_counts(codes, lens, lookup, k)
 
 
-@functools.partial(aot_jit, static_argnames=("k",))
+@functools.partial(jax.jit, static_argnames=("k",))
 def _classify_direct(codes, lens, bitmap, k: int):
     """Direct-addressed membership: one bitmap-word gather per window,
     exact counts (the fast path for k <= 14; see DeviceKmerTable)."""

@@ -1,8 +1,8 @@
 """Host-sharded genotyping: the multi-host execution model.
 
-On a TPU pod each host owns a contiguous shard of the input fragments,
-runs ingest -> read assignment -> fragment assignment against its local
-replica of the reference (engine + chip), and ships only the per-fragment
+Each host owns a contiguous shard of the input fragments, runs ingest ->
+read assignment -> fragment assignment against its local replica of the
+reference (engine + device), and ships only the per-fragment
 assignment records (allele, span, float32 weights — a few bytes per
 fragment-allele) plus its integer coverage tensor to the driver.  The
 driver concatenates records in host order, sums the coverage tensors and
@@ -19,7 +19,7 @@ This composition is *byte-identical* to the single-host pipeline:
 * read assignment itself is per-read and weight-independent.
 
 The same entry point runs the shards in-process (workers = simulated
-hosts), which is how the equivalence is tested; on a real pod each
+hosts), which is how the equivalence is tested; on a real cluster each
 worker call maps to one host process.
 
 Reference behavior contract: Genotyper.cpp:337-718 (single-node flow

@@ -60,10 +60,9 @@ def sharded_em_step(mesh: Mesh, axis: str = "dp"):
 
     def step(x, seg_ec, sec_sorted, srg_ecorder, cts_ecorder, rg_starts,
              rg_ends, ecs_starts, ecs_ends, ec_len):
-        # scatter-free, permutation-free segment sums (see ops/em.py):
-        # the shard's incidence list is precomputed in read-group order
-        # AND in EC order; TPU scatters and big->big permutation
-        # gathers would serialize the hot loop
+        # sorted-segment sums (see ops/em.py): the shard's incidence
+        # list is precomputed in read-group order AND in EC order, so
+        # the hot loop needs no big->big permutation gather
         psum = sorted_segment_sum(x[seg_ec], rg_starts, rg_ends)
         psum = jnp.where(psum == 0, 1, psum)
         contrib = cts_ecorder * x[sec_sorted] / psum[srg_ecorder]
@@ -83,7 +82,7 @@ def partition_read_groups(seg_rg: np.ndarray, seg_ec: np.ndarray,
     shard, padded to equal length (padding points at a dummy group whose
     abundance contribution is zero).  When ec_cnt is given, also emits
     the per-shard EC sort permutation and the per-shard segment bounds
-    needed by the scatter-free device step (ops/em.py)."""
+    needed by the sorted-segment device step (ops/em.py)."""
     from ..ops.em import segment_bounds
 
     order = np.argsort(seg_rg, kind="stable")
@@ -149,12 +148,12 @@ def em_quantify_sharded_squarem(
     with the incidence sharded over the mesh on whole-read-group
     boundaries and ONE psum of per-EC expected counts per EM update
     (the only collective).  This is the step dryrun_multichip compiles
-    and a pod driver would run; trajectory matches the single-device
+    and a multi-device run would use; trajectory matches the single-device
     device EM (ops/em.py) and the native f64 loop's iteration count
     (tests/test_device_ops.py::test_sharded_squarem_matches_native).
 
     Dispatch model (single_dispatch=None resolves by platform): on real
-    TPU meshes the ENTIRE convergence loop runs as ONE jitted
+    device meshes the ENTIRE convergence loop runs as ONE jitted
     shard_mapped `lax.while_loop` with the psum inside — no per-round
     host dispatch, matching the reference's run-to-convergence loop
     (Genotyper.hpp:1234-1290) and the single-device path (ops/em.py
@@ -188,9 +187,8 @@ def em_quantify_sharded_squarem(
     # the shard): read groups are contiguous per shard, so each shard
     # owns a local [R_local+1, ec] int8 incidence (last row = padding
     # dummy) built on device; the E-step becomes two mixed-precision
-    # matvecs — no gathers/scatters, which serialize on TPU (measured
-    # 20-100x over the segment formulation at single-device scale).
-    # Falls back to the prefix-sum segment formulation when per-entry
+    # matvecs, with no gathers or scatters.
+    # Falls back to the sorted-segment formulation when per-entry
     # counts were supplied (dense rows carry one count per read group)
     # or the per-shard incidence exceeds the device budget.
     from ..ops.em import DENSE_EM_MAX_BYTES, _mv, _vm
@@ -266,7 +264,7 @@ def em_quantify_sharded_squarem(
 
             return em_update
     else:
-        # ---- scatter-free segment E-step (per-entry counts, or the
+        # ---- sorted-segment E-step (per-entry counts, or the
         # per-shard dense incidence exceeds the device budget)
         data = (sec, secs_sorted, srgo, ctso.astype(np.float64), srgs,
                 srge, secs, sece)

@@ -2,16 +2,16 @@
 
 parallel/mesh.py validates the sharded-EM collective mechanics on a
 single-process virtual mesh; this module runs the same step across
-*processes*, the way a real TPU pod slice runs it: one JAX process per
-host, `jax.distributed.initialize` against a coordinator, a global mesh
-spanning every host's devices, per-host incidence shards assembled into
-a global array with `jax.make_array_from_process_local_data`, and the
-per-EC expected counts merged by the in-step `psum` riding ICI (DCN
-between hosts on CPU/testing rigs).
+*processes*: one JAX process per host, `jax.distributed.initialize`
+against a coordinator, a global mesh spanning every host's devices,
+per-host incidence shards assembled into a global array with
+`jax.make_array_from_process_local_data`, and the per-EC expected
+counts merged by the in-step `psum`.  Invoked explicitly; it is tested
+on CPU processes only, not on GPUs.
 
 Reference behavior contract: the reference is single-node pthreads
-(SURVEY.md section 2.4); this is the TPU-native replacement — the EM
-sufficient statistics are the only cross-host traffic in the hot loop.
+(SURVEY.md section 2.4); here the EM sufficient statistics are the
+only cross-host traffic in the hot loop.
 
 Each host calls `em_quantify_multihost` collectively with the FULL
 incidence problem (the global arrays are small host-side metadata;
@@ -30,8 +30,8 @@ import numpy as np
 
 def initialize_from_env() -> int:
     """Connect this process to the multi-host cluster described by
-    T1K_COORDINATOR / T1K_NUM_PROCESSES / T1K_PROCESS_ID (or the standard
-    cloud-TPU auto-detection when unset).  Returns the process index."""
+    T1K_COORDINATOR / T1K_NUM_PROCESSES / T1K_PROCESS_ID (or JAX's own
+    cluster auto-detection when unset).  Returns the process index."""
     import jax
 
     coord = os.environ.get("T1K_COORDINATOR")

@@ -12,7 +12,7 @@ On this development rig the mesh is virtual (N CPU "devices"
 multiplexed over the same physical cores), so the numbers validate the
 collective mechanics and measure the sharding overhead rather than
 speed — weak-scaling times grow with total work because every virtual
-device shares one socket.  On a pod slice (T1K_SCALING_REAL=1) the same
+device shares one socket.  On a multi-GPU host (T1K_SCALING_REAL=1) the same
 code spans real chips over ICI and the per-device work is genuinely
 parallel.
 
@@ -63,13 +63,13 @@ def bench_full_step(sizes) -> dict:
 
 def main() -> int:
     # default: a virtual 8-device CPU mesh (set T1K_SCALING_REAL=1 to use
-    # the real device set, e.g. on a pod slice)
+    # the real device set, e.g. on a multi-GPU host)
     flags = os.environ.get("XLA_FLAGS", "")
     if "host_platform_device_count" not in flags:
         os.environ["XLA_FLAGS"] = (
             flags + " --xla_force_host_platform_device_count=8").strip()
     if not os.environ.get("T1K_SCALING_REAL"):
-        os.environ.setdefault("T1K_JAX_CACHE", "0")  # cpu mesh: no cache
+        os.environ.setdefault("JAX_PLATFORMS", "cpu")  # also: no cache
     import jax
 
     if not os.environ.get("T1K_SCALING_REAL"):

@@ -155,8 +155,8 @@ def run_case(seed):
 
     from t1k_tpu.cli.genotype import main as gmain
 
-    # T1K_FUZZ_EXTRA_ARGS="--backend tpu" fuzzes the deferred-DP path
-    # (Pallas kernel in interpret mode on CPU — identical results)
+    # T1K_FUZZ_EXTRA_ARGS="--backend device" fuzzes the deferred-DP path
+    # (with JAX_PLATFORMS=cpu, the same band DP on the CPU)
     extra = os.environ.get("T1K_FUZZ_EXTRA_ARGS", "").split()
     # Randomly exercise the device candidate-pruning path too (exact
     # pre-DP chain filters on the keep set, ops/phase_a.py

@@ -149,7 +149,7 @@ def test_kernel_511_op_walk_boundary():
     """The packed counters carry up to t_len+p_len+2 ops; 254+254+2=510
     is the largest legal walk (counts must match the oracle exactly) and
     255+255 must be refused."""
-    from t1k_tpu.ops.align_pallas_band import banded_stats_band
+    from t1k_tpu.ops.align import banded_stats
 
     rng = np.random.default_rng(3)
     L = 254
@@ -161,8 +161,7 @@ def test_kernel_511_op_walk_boundary():
             p[i, q] = (p[i, q] + 1) % 4
     tl = np.full(4, L, np.int32)
     pl = np.full(4, L, np.int32)
-    scores, match, mis, ind = banded_stats_band(t, tl, p, pl,
-                                                interpret=True)
+    scores, match, mis, ind = banded_stats(t, tl, p, pl)
     for i in range(4):
         sc, ops = align_global(t[i], p[i])
         assert scores[i] == sc
@@ -172,5 +171,5 @@ def test_kernel_511_op_walk_boundary():
 
     big = np.zeros((1, 255), np.int8)
     with pytest.raises(AssertionError):
-        banded_stats_band(big, np.array([255], np.int32), big,
-                          np.array([255], np.int32), interpret=True)
+        banded_stats(big, np.array([255], np.int32), big,
+                     np.array([255], np.int32))

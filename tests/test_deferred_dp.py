@@ -1,7 +1,8 @@
 """Deferred-DP assignment path: the engine's three-phase batch mode
 (seed/chain -> external gap counts -> external extension counts ->
-finish) must be byte-identical to the inline path, with both the native
-oracle and the Pallas stats kernel serving the counts."""
+finish) must be byte-identical to the inline path, with the native
+oracle, the device band DP and the descriptor service serving the
+counts."""
 
 import os
 
@@ -82,7 +83,7 @@ def test_deferred_matches_inline_oracle(threads):
 def test_deferred_matches_inline_pallas_interpret():
     if not os.path.exists(CYP_RNA):
         pytest.skip("cyp2d6 database unavailable")
-    from t1k_tpu.ops.align_pallas_band import make_deferred_stats_fn
+    from t1k_tpu.ops.align import make_deferred_stats_fn
 
     rs, flat, starts, lens, weights = _setup(n_alleles=8, n_reads=20)
     packed = rs.packed()
@@ -93,10 +94,43 @@ def test_deferred_matches_inline_pallas_interpret():
 
     eng2 = NativeEngine(packed, k)
     rec2, off2 = eng2.assign_batch_deferred(
-        flat, starts, lens, weights, make_deferred_stats_fn(interpret=True))
+        flat, starts, lens, weights, make_deferred_stats_fn())
 
     assert np.array_equal(rec1, rec2)
     assert np.array_equal(off1, off2)
+
+
+def test_desc_service_matches_inline_on_multigene_panel():
+    """The descriptor transport the device backend runs (reference and
+    reads device-resident, small fixed slices here) through the engine's
+    chunked deferral leaves the same engine state as the inline path, on
+    the in-repo multigene panel and reads."""
+    from t1k_tpu.ops.align import DeferredDescService
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    rs = RefSet.from_fasta(os.path.join(data, "multigene_rna.fa"))
+    recs1 = list(read_seq_file(os.path.join(data, "multigene_1.fq")))[:150]
+    recs2 = list(read_seq_file(os.path.join(data, "multigene_2.fq")))[:150]
+    seqs = [r.seq for r in recs1] + [r.seq for r in recs2]
+    codes = [encode_seq(s) for s in seqs]
+    lens = np.array([len(c) for c in codes], np.int32)
+    starts = np.zeros(len(codes), np.int64)
+    starts[1:] = np.cumsum(lens[:-1])
+    flat = np.concatenate(codes).astype(np.int8)
+    weights = np.ones(len(codes), np.int32)
+    packed = rs.packed()
+    k = rs.infer_kmer_length()
+
+    eng1 = NativeEngine(packed, k)
+    rec1, off1 = eng1.assign_batch(flat, starts, lens, weights)
+    svc = DeferredDescService(slice_items=512)
+    eng2 = NativeEngine(packed, k)
+    rec2, off2 = eng2.assign_batch_deferred(flat, starts, lens, weights,
+                                            desc_service=svc)
+    assert np.array_equal(rec1, rec2)
+    assert np.array_equal(off1, off2)
+    assert np.array_equal(eng1.pos_weight(), eng2.pos_weight())
+    assert svc.items_scored > 0 and rec1.shape[0] > 0
 
 
 def test_chunked_deferral_matches_unchunked():
@@ -131,14 +165,63 @@ def test_chunked_deferral_matches_unchunked():
     assert rec1.shape[0] > 0
 
 
+@pytest.mark.parametrize("chunk", [37, 100])
+def test_chunked_deferral_with_device_candidates(chunk):
+    """Device candidate pruning through chunked deferral: every chunk's
+    begin pass must prune with its own reads' candidate buckets, so the
+    engine ends in the same state as an unpruned run (on the in-repo
+    multigene panel, many chunks)."""
+    from t1k_tpu.ops.phase_a import DeviceCandidates
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    rs = RefSet.from_fasta(os.path.join(data, "multigene_rna.fa"))
+    recs1 = list(read_seq_file(os.path.join(data, "multigene_1.fq")))[:120]
+    recs2 = list(read_seq_file(os.path.join(data, "multigene_2.fq")))[:120]
+    seqs = [r.seq for r in recs1] + [r.seq for r in recs2]
+    codes = [encode_seq(s) for s in seqs]
+    lens = np.array([len(c) for c in codes], np.int32)
+    starts = np.zeros(len(codes), np.int64)
+    starts[1:] = np.cumsum(lens[:-1])
+    flat = np.concatenate(codes).astype(np.int8)
+    weights = np.ones(len(codes), np.int32)
+    packed = rs.packed()
+    k = rs.infer_kmer_length()
+    n = len(lens)
+    uid1 = np.arange(n // 2, dtype=np.int64)
+    uid2 = np.arange(n // 2, n, dtype=np.int64)
+    has_n = np.zeros(n // 2, np.uint8)
+
+    def run(candidates):
+        eng = NativeEngine(packed, k)
+        if candidates:
+            padded = np.full((n, int(lens.max())), 4, np.int8)
+            for i, c in enumerate(codes):
+                padded[i, :len(c)] = c
+            dev = DeviceCandidates.build(packed, k, eng.hit_len_required,
+                                         row_chunk=128, tile_rows=1024)
+            c_reads, c_seqs, c_strands, undecided = dev.generate(padded, lens)
+            assert not undecided.all()
+            eng.set_candidates(n, c_reads, c_seqs, c_strands, undecided)
+        eng.assign_batch_deferred(flat, starts, lens, weights, _oracle_stats,
+                                  store_results=False, chunk_size=chunk)
+        total = eng.last_assign_count
+        rec, cnt, fl = eng.fragment_batch(uid1, uid2, has_n, True, 2000, None)
+        return total, rec, cnt, fl, eng.pos_weight()
+
+    plain, pruned = run(False), run(True)
+    assert plain[0] > 0 and plain[0] == pruned[0]
+    for a, b in zip(plain[1:], pruned[1:]):
+        assert np.array_equal(a, b)
+
+
 def test_deferred_pallas_with_indel_reads():
     """Reads carrying 3-9bp indels produce gap-fill / extension windows
     with large length differences, exercising the adaptive ML / window
-    buckets of the deferred stats kernel (ops/align_pallas_band.py
-    _diff_bucket) — still byte-identical to the inline path."""
+    buckets of the deferred stats DP (ops/align.py make_deferred_stats_fn)
+    — still byte-identical to the inline path."""
     if not os.path.exists(CYP_RNA):
         pytest.skip("cyp2d6 database unavailable")
-    from t1k_tpu.ops.align_pallas_band import make_deferred_stats_fn
+    from t1k_tpu.ops.align import make_deferred_stats_fn
 
     rs, _, _, _, _ = _setup(n_alleles=8, n_reads=4)
     recs = list(read_seq_file(CYP_RNA))
@@ -168,7 +251,7 @@ def test_deferred_pallas_with_indel_reads():
     rec1, off1 = eng1.assign_batch(flat, starts, lens, weights)
     eng2 = NativeEngine(packed, k)
     rec2, off2 = eng2.assign_batch_deferred(
-        flat, starts, lens, weights, make_deferred_stats_fn(interpret=True))
+        flat, starts, lens, weights, make_deferred_stats_fn())
     assert np.array_equal(rec1, rec2)
     assert np.array_equal(off1, off2)
     assert rec1.shape[0] > 0

@@ -1,6 +1,6 @@
-"""Device-op tests (virtual CPU mesh): batched aligner score parity,
-jitted EM vs the exact native EM, device k-mer prefilter safety, and the
-multi-chip sharded EM step."""
+"""Device-op tests (virtual CPU mesh): band-DP parity with the native
+walk, jitted EM vs the exact native EM, device k-mer prefilter safety,
+and the multi-device sharded EM step."""
 
 import os
 
@@ -47,13 +47,93 @@ def test_jax_aligner_matches_reference_scores():
     assert (got == want).all()
 
 
-def test_pallas_aligner_interpret_matches():
-    from t1k_tpu.ops.align_pallas import banded_scores_pallas
+def _random_pairs(rng, n, max_len, max_diff=10):
+    """Pattern/text pairs with |Δlen| <= max_diff: half mutated copies
+    (N bases included), half unrelated."""
+    lp = rng.integers(1, max_len + 1, n)
+    lt = np.clip(lp + rng.integers(-max_diff, max_diff + 1, n), 1, max_len)
+    tc = rng.integers(0, 5, (n, max_len)).astype(np.int8)
+    pc = tc.copy()
+    mut = rng.random((n, max_len)) < 0.05
+    pc[mut] = rng.integers(0, 5, int(mut.sum()))
+    other = rng.random(n) < 0.5
+    pc[other] = rng.integers(0, 5, (int(other.sum()), max_len))
+    return tc, lt.astype(np.int32), pc, lp.astype(np.int32)
 
-    tc, tl, pc, pl, want = _golden_batch()
-    got = np.asarray(banded_scores_pallas(tc[:32], tl[:32], pc[:32], pl[:32],
-                                          block_b=32, interpret=True))
-    assert (got == want[:32]).all()
+
+def _walk_stats(tc, tl, pc, pl):
+    from t1k_tpu.native import align_global
+
+    out = []
+    for i in range(len(tl)):
+        s, ops = align_global(tc[i, :tl[i]], pc[i, :pl[i]])
+        out.append((s, int((ops == 0).sum()), int((ops == 1).sum()),
+                    int(((ops == 2) | (ops == 3)).sum())))
+    return np.array(out)
+
+
+@pytest.mark.parametrize("bucket", [96, 256])
+def test_band_dp_matches_walk_at_deferred_buckets(bucket):
+    """The band DP at the deferred service's fixed (ML, W) class and each
+    length bucket equals the native walk exactly: score and all three
+    traceback counts."""
+    from t1k_tpu.ops.align import _DESC_ML, _DESC_W, banded_stats
+
+    rng = np.random.default_rng(bucket)
+    tc, tl, pc, pl = _random_pairs(rng, 96, bucket - 2)
+    got = np.stack(banded_stats(tc, tl, pc, pl, ml=_DESC_ML, w=_DESC_W),
+                   axis=1)
+    assert np.array_equal(got, _walk_stats(tc, tl, pc, pl))
+
+
+def test_deferred_desc_service_buckets_slices_and_order():
+    """Items of both length buckets, spread over several fixed-size
+    slices, come back from the descriptor service in input order, equal
+    to the native walk's match counts; forward and reverse-complement
+    pattern windows both resolve."""
+    from t1k_tpu.native import align_stats
+    from t1k_tpu.ops.align import DeferredDescService
+
+    rng = np.random.default_rng(7)
+    ref = rng.integers(0, 5, 5000).astype(np.int8)
+    read_lens = rng.integers(150, 250, 12).astype(np.int32)
+    starts = np.zeros(12, np.int64)
+    starts[1:] = np.cumsum(read_lens[:-1])
+    reads = rng.integers(0, 4, int(read_lens.sum())).astype(np.int8)
+
+    svc = DeferredDescService(slice_items=8)
+    svc.set_ref(ref)
+    svc.set_layout(starts, read_lens)
+    rc_base = svc.begin_batch(reads)
+
+    n = 40
+    p_len = np.where(np.arange(n) % 3 == 0, rng.integers(100, 150, n),
+                     rng.integers(1, 90, n)).astype(np.int32)
+    t_len = np.clip(p_len + rng.integers(-10, 11, n), 1, None).astype(np.int32)
+    rd = rng.integers(0, 12, n)
+    p_off = starts[rd] + rng.integers(0, read_lens[rd] - p_len + 1)
+    rc = rng.random(n) < 0.5
+    p_off = np.where(rc, rc_base + p_off, p_off)
+    t_off = rng.integers(0, len(ref) - 300, n)
+    got = svc.stats(t_off, t_len, p_off, p_len)
+
+    rc_reads = np.where(reads < 4, 3 - reads, reads)
+    want = []
+    for i in range(n):
+        t = ref[t_off[i]:t_off[i] + t_len[i]]
+        o = int(p_off[i])
+        if rc[i]:
+            # the rc half is each read reversed in place
+            o -= rc_base
+            r = int(rd[i])
+            s, ln = int(starts[r]), int(read_lens[r])
+            read_rc = rc_reads[s:s + ln][::-1]
+            p = read_rc[o - s:o - s + p_len[i]]
+        else:
+            p = reads[o:o + p_len[i]]
+        want.append(align_stats(t, p)[0])
+    assert np.array_equal(got, np.array(want))
+    assert svc.items_scored == n
 
 
 def _em_inputs():
@@ -193,7 +273,7 @@ def test_sharded_squarem_matches_native():
 
 def test_sharded_squarem_single_dispatch_matches_host_loop():
     """The single-dispatch production path (whole convergence loop as ONE
-    shard_mapped while_loop with the psum inside — what real TPU meshes
+    shard_mapped while_loop with the psum inside — what real device meshes
     run) follows the same trajectory as the per-round host loop used by
     the virtual-CPU dryrun.  A 1-device mesh sidesteps the CPU-backend
     psum-in-while deadlock while still exercising the shard_map +
@@ -226,19 +306,19 @@ def test_sharded_squarem_single_dispatch_matches_host_loop():
 
 
 def test_band_pallas_interpret_matches():
-    from t1k_tpu.ops.align_pallas_band import banded_scores_band
+    """The 400 golden cases at the deferred service's fixed window."""
+    from t1k_tpu.ops.align import _DESC_ML, _DESC_W, banded_stats
 
     tc, tl, pc, pl, want = _golden_batch()
-    got = banded_scores_band(tc[:64], tl[:64], pc[:64], pl[:64], G=1,
-                             interpret=True)
-    assert (np.asarray(got) == want[:64]).all()
+    got = banded_stats(tc, tl, pc, pl, ml=_DESC_ML, w=_DESC_W)[0]
+    assert (np.asarray(got) == want).all()
 
 
 def test_band_pallas_stats_matches_walk():
     """Forward count propagation == native traceback counts, including
     boundary-quirk shapes (short pattern, long text)."""
     from t1k_tpu.native import align_global
-    from t1k_tpu.ops.align_pallas_band import banded_stats_band
+    from t1k_tpu.ops.align import banded_stats
 
     rng = np.random.default_rng(19)
     t_list, p_list = [], []
@@ -276,7 +356,7 @@ def test_band_pallas_stats_matches_walk():
     ML = 5 + max(0, int((pl - tl).max()))
     tl = np.minimum(tl, pl + (32 - 1 - 5 - ML))  # keep band in window
 
-    scores, ma, mi, ind = banded_stats_band(tc, tl, pc, pl, interpret=True)
+    scores, ma, mi, ind = banded_stats(tc, tl, pc, pl)
     for i in range(B):
         s_ref, ops = align_global(tc[i, :tl[i]], pc[i, :pl[i]])
         want = (int((ops == 0).sum()), int((ops == 1).sum()),
@@ -289,15 +369,15 @@ def test_band_window_adapts_to_length_difference():
     """The window width tracks the batch's band extent: every band cell
     (w up to ML + 5 + (t_len - p_len), SeqSet band widening at
     AlignAlgo.hpp:240) must be representable.  Narrow batches (equal
-    lengths -> W=16) and wide ones (diff 25 -> W=40) both match the
+    lengths -> W=11) and wide ones (diff 25 -> W=36) both match the
     native oracle exactly."""
     from t1k_tpu.native import align_global
-    from t1k_tpu.ops.align_pallas_band import band_window, banded_scores_band
+    from t1k_tpu.ops.align import band_window, banded_scores
 
-    assert band_window(5, 0) == 16
-    assert band_window(5, 12) == 24
-    assert band_window(15, 10) == 32
-    assert band_window(5, 25) == 40
+    assert band_window(5, 0) == 11
+    assert band_window(5, 12) == 23
+    assert band_window(15, 10) == 31
+    assert band_window(5, 25) == 36
 
     rng = np.random.default_rng(23)
     for diff in (0, 25):
@@ -310,7 +390,7 @@ def test_band_window_adapts_to_length_difference():
         pc[mut] = rng.integers(0, 4, int(mut.sum())).astype(np.int8)
         tl = np.full(B, lent, np.int32)
         pl = np.full(B, lenp, np.int32)
-        got = banded_scores_band(tc, tl, pc, pl, G=1, interpret=True)
+        got = banded_scores(tc, tl, pc, pl)
         want = np.array([align_global(tc[i], pc[i])[0] for i in range(B)])
         assert (np.asarray(got) == want).all(), f"diff={diff}"
 

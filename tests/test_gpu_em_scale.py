@@ -1,27 +1,16 @@
 """Scale-exactness evidence for the device EM route (VERDICT r3 #3).
 
-At the >= 5e7-dense-cell size where `auto` routes the EM to the chip,
+At the >= 5e7-dense-cell size where `auto` routes the EM to the device,
 the REAL f32 device trajectory polished by the native f64 SQUAREM must
 land on the native route's fixed point to below output rounding.  Runs
-on real TPU hardware only (T1K_REAL_DEVICE=1); the CPU-side polish
-contract is pinned in tests/test_routing.py.
+on a GPU only (T1K_REAL_DEVICE=1); the CPU-side polish contract is
+pinned in tests/test_routing.py.
 """
-
-import os
 
 import numpy as np
 import pytest
 
-pytestmark = pytest.mark.tpu
-
-
-def _require_tpu():
-    if not os.environ.get("T1K_REAL_DEVICE"):
-        pytest.skip("needs real TPU hardware (set T1K_REAL_DEVICE=1)")
-    import jax
-
-    if jax.devices()[0].platform != "tpu":
-        pytest.skip("no TPU attached")
+pytestmark = pytest.mark.gpu
 
 
 def _big_problem(rg_cnt=100_000, ec_cnt=600, seed=7):
@@ -48,8 +37,7 @@ def _big_problem(rg_cnt=100_000, ec_cnt=600, seed=7):
     )
 
 
-def test_device_em_route_matches_native_at_gate_scale():
-    _require_tpu()
+def test_device_em_route_matches_native_at_gate_scale(gpu, monkeypatch):
     from t1k_tpu.core.genotyper import Genotyper
     from t1k_tpu.native import em_quantify
     from t1k_tpu.ops.em import em_quantify_jax
@@ -59,14 +47,14 @@ def test_device_em_route_matches_native_at_gate_scale():
     ec_cnt = len(args["ec_to_alleles"])
     assert rg_cnt * ec_cnt >= 5e7  # past the auto gate
 
-    # the resolver must pick the device at this size with a chip present
-    os.environ.pop("T1K_EM_BACKEND", None)
-    os.environ["T1K_TPU_PRESENT"] = "1"
+    # the resolver must pick the device at this size with a card present
+    for var in ("T1K_EM_BACKEND", "T1K_BACKEND", "T1K_DEVICE_PRESENT"):
+        monkeypatch.delenv(var, raising=False)
     assert Genotyper._resolve_em_backend(rg_cnt, ec_cnt) == "jax"
 
     it_native, count_native = em_quantify(**args)
 
-    # the REAL on-chip trajectory (f32 — TPUs have no native f64)
+    # the REAL on-card trajectory (f32: 64-bit mode is off)
     it_dev, count_dev = em_quantify_jax(**args)
     ec_len = np.array(
         [min(int(args["allele_eff_len"][a]) for a in alleles)
@@ -83,5 +71,5 @@ def test_device_em_route_matches_native_at_gate_scale():
     assert n_diff == 0, (
         f"{n_diff}/{ec_cnt} rounded EC abundances differ between the "
         f"polished device route and the native route")
-    print(f"\ndevice {it_dev} iters (f32 on chip) + {it_pol} polish "
+    print(f"\ndevice {it_dev} iters (f32 on the card) + {it_pol} polish "
           f"iters vs native {it_native} iters: rounded abundances equal")

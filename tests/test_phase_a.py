@@ -249,3 +249,12 @@ def test_candidates_parity_near_identical_panel():
     n = check_candidate_parity(seqs, reads, k=11, hit_len=31,
                                caps=dict(bucket_cap=256))
     assert n > 20
+
+
+@pytest.mark.gpu
+def test_candidates_parity_on_gpu(gpu):
+    """The candidate parity checks above, with the kernels compiled for
+    the card (a scatter, sort or segment reduction that behaves
+    differently there shows up here)."""
+    test_candidates_parity_random_panels()
+    test_candidates_parity_near_identical_panel()

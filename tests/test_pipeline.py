@@ -211,9 +211,9 @@ def test_truncated_mate_boundary_sentinel(tmp_path):
         assert got == f.read()
 
 
-def test_tpu_backend_chain_matches_golden(tmp_path):
+def test_device_backend_chain_matches_golden(tmp_path):
     """Full extract -> genotype -> analyze chain with the device
-    alignment backend (deferred-DP batched to the band kernel) must be
+    alignment backend (deferred-DP batched to the band DP) must be
     byte-identical to the native chain's reference goldens."""
     cyp = os.environ.get(
         "T1K_CYP2D6_IDX", "/root/reference/vcf_database/cyp2d6_idx"
@@ -225,17 +225,17 @@ def test_tpu_backend_chain_matches_golden(tmp_path):
         pytest.skip("run tests/make_goldens.py first")
     from t1k_tpu.cli.run import main
 
-    outdir = str(tmp_path / "tpurun")
+    outdir = str(tmp_path / "devicerun")
     rc = main(["-f", cyp,
                "-1", os.path.join(DATA_DIR, "rna_1.fq"),
                "-2", os.path.join(DATA_DIR, "rna_2.fq"),
-               "--od", outdir, "-o", "chain", "--backend", "tpu"])
+               "--od", outdir, "-o", "chain", "--backend", "device"])
     assert rc == 0
     for suffix in ("_genotype.tsv", "_allele.tsv", "_allele.vcf"):
         with open(os.path.join(outdir, "chain" + suffix)) as f:
             got = f.read()
         with open(os.path.join(GOLDEN_DIR, "runt1k" + suffix)) as f:
-            assert got == f.read(), f"tpu-backend chain{suffix} differs"
+            assert got == f.read(), f"device-backend chain{suffix} differs"
 
 
 def test_error_read_assigns_to_true_allele():
